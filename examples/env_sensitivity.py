@@ -1,7 +1,7 @@
 """Gen-2 environment sensitivity studies: the eta(dt) fit and the
 M-ansatz parameter stiffness spectrum.
 
-The TPU-native analogue of the reference's two exploratory studies:
+The batched-JAX analogue of the reference's two exploratory studies:
 
 - ``new_tdvp/RightEnvParametrisation.py:1-162`` fits polynomials to the
   mixed-transfer dominant eigenvalue eta as a function of the TDVP step

@@ -13,7 +13,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import jax
 
 if os.environ.get("QMPS_TPU_X64", "1") == "1":
-    # float64 correctness mode has no TPU support here; run on CPU
+    # float64 correctness mode is the CPU reference run; QMPS_TPU_X64=0
+    # runs 32-bit on the default device
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
@@ -41,15 +42,14 @@ def main():
     print(f"max error vs exact integral: {err.max():.2e}; "
           f"all above exact: {bool((err > -1e-8).all())}")
 
-    # The fused Riemannian engine: same physics, two Pallas launches per
-    # optimizer step for the whole batch, no expm chart — measured 13.7x
-    # the suN path on one v5e (see docs/DESIGN.md)
+    # The fused Riemannian engine: same physics, no expm chart; on a GPU
+    # two Triton launches per optimizer step for the whole batch (the
+    # engine default picks the kernel there and plain XLA elsewhere)
     from qmps_tpu.parallel.sweep import sweep_ground_states_fused
 
     t0 = time.perf_counter()
     es_f, _ = sweep_ground_states_fused(
-        gs, steps=300, restarts=2, chunk=50,
-        mesh=mesh, engine="pallas" if jax.default_backend() == "tpu" else "xla",
+        gs, steps=300, restarts=2, chunk=50, mesh=mesh,
     )
     es_f.block_until_ready()
     dt_f = time.perf_counter() - t0

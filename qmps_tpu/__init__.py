@@ -1,9 +1,10 @@
-"""qmps_tpu — a TPU-native JAX framework for uniform-MPS quantum circuits.
+"""qmps_tpu — a JAX framework for uniform-MPS quantum circuits.
 
 A ground-up rebuild of the capabilities of the reference qMPS codebase
 (fergusfinn/qmps): translationally invariant matrix product states represented
 as parametrized quantum circuits, optimized and time-evolved entirely with
-jit-compiled tensor contractions on TPU — no circuit simulator in the loop.
+jit-compiled tensor contractions on an accelerator (an NVIDIA GPU) — no
+circuit simulator in the loop.
 
 Layer map (bottom to top):
 
@@ -26,27 +27,30 @@ Layer map (bottom to top):
 - ``optim``       gradient optimizers (optax) + jittable Rotosolve.
 - ``algorithms``  ground-state search, environment representation, TDVP time
                   evolution / Loschmidt echoes, many-body scars.
-- ``parallel``    vmap/shard_map sweep infrastructure over a TPU mesh.
-- ``kernels``     Pallas TPU kernels for the hot contractions.
+- ``parallel``    vmap/shard_map sweep infrastructure over a device mesh.
+- ``kernels``     batched contractions and the fused D=2 energy kernel
+                  (Pallas, Triton route).
 
 Numerics policy: float64/complex128 is enabled globally (the 1e-10 parity
-targets require it); TPU hot paths explicitly cast to complex64 where speed
-matters and accuracy allows (see ``qmps_tpu.config``).
+targets require it); accelerator hot paths run 32-bit where speed matters
+and accuracy allows (see ``qmps_tpu.config``).
 """
 import os
 
 import jax
 
 # Correctness default: float64/complex128 (the 1e-10 parity targets need it).
-# TPU hot paths (bench.py, __graft_entry__.py) set QMPS_TPU_X64=0 before
-# importing: with x64 disabled every dtype request canonicalizes to 32-bit,
-# which is what the TPU backend supports (complex128 is not available there).
+# Accelerator runs (bench.py, chip_smoke.py, __graft_entry__.py) set
+# QMPS_TPU_X64=0 before importing: with x64 disabled every dtype request
+# canonicalizes to 32-bit.
 if os.environ.get("QMPS_TPU_X64", "1") == "1":
     jax.config.update("jax_enable_x64", True)
 
-# TPU matmuls default to bfloat16 passes; repeated-squaring fixed points and
-# Lie exponentials need full f32 accumulation (measured: O(1) energy errors
-# in the phase-diagram sweep without this).
+# Full float32 matmuls everywhere: at the default precision a GPU runs
+# float32 products in TF32 (10-bit mantissa), and repeated-squaring fixed
+# points and Lie exponentials need full f32 accumulation (O(1) energy
+# errors in the phase-diagram sweep without it).  Callers that can afford
+# cheaper products ask for them locally (the Stiefel sweep's descent tier).
 jax.config.update("jax_default_matmul_precision", "highest")
 
 __version__ = "0.1.0"

@@ -1,6 +1,6 @@
 """Quantum many-body scars: PXP TDVP dynamics + Poincare maps.
 
-TPU-native rebuild of scars.py and poincare_map/2body_scars.py: the 2-param
+JAX rebuild of scars.py and poincare_map/2body_scars.py: the 2-param
 analytic scars tensor A(theta, phi), 2-site-unit-cell TDVP evolution via the
 mixed-transfer objective (the reference's 8-qubit Hadamard-test circuit
 collapses to -|x| exactly as in objectives.overlap), the classical TDVP

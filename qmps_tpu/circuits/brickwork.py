@@ -1,6 +1,6 @@
 """Gen-2 brickwork circuit MPS: the direct-contraction engine.
 
-TPU-native rebuild of new_tdvp/{ClassicalTDVPStripped,BrickWallMPS}.py: a
+JAX rebuild of new_tdvp/{ClassicalTDVPStripped,BrickWallMPS}.py: a
 D=2 uniform MPS whose unit cell is two brickwork layers (U2 on even bonds
 feeding U1 on odd bonds).  All diagrams are single jnp.einsum contractions
 (XLA picks the schedule; the reference precomputed greedy paths by hand,

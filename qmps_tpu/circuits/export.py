@@ -2,8 +2,8 @@
 
 Gen-1 of the reference emits cirq Gate objects that plug into a real
 device pipeline (qmps/represent.py:188-265; the sqrt-iSWAP natives in
-experiments/Jamie.py:38-146 exist to run on Google hardware).  The
-TPU-native rebuild compiles circuits to dense tensors for simulation —
+experiments/Jamie.py:38-146 exist to run on Google hardware).  This
+JAX rebuild compiles circuits to dense tensors for simulation —
 this module closes the loop outward: any ``[(U, wires)]`` op list whose
 gates act on <= 2 qubits serializes to OpenQASM 2.0 (u3/cx only), so the
 ansatz zoo, the TDVP/Loschmidt circuits, and hardware-native sequences

@@ -1,6 +1,6 @@
 """Finite-depth brick-wall (staircase/lightcone) states.
 
-TPU-native rebuild of scripts/finite_depth/finite_depth.py: pyramid-shaped
+JAX rebuild of scripts/finite_depth/finite_depth.py: pyramid-shaped
 brick-wall circuits of a given depth approximating the infinite state on a
 finite window, their growth under a Trotter layer, and central-window
 expectation values — the machinery behind the reference's local-vs-global

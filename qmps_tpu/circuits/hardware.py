@@ -1,6 +1,6 @@
 """Hardware-native (sqrt-iSWAP) gate compilations for Google-style devices.
 
-TPU-native rebuild of experiments/Jamie.py:13-168: each gate is a dense
+JAX rebuild of experiments/Jamie.py:13-168: each gate is a dense
 unitary composed through the circuit compiler, so the whole native-gate
 calibration stack is jittable and differentiable.
 """

@@ -1,6 +1,6 @@
 """Lie-algebra parametrizations of unitaries.
 
-TPU-first replacement for the reference's xmps.spin.{SU, U4, lambdas} and
+JAX replacement for the reference's xmps.spin.{SU, U4, lambdas} and
 new_tdvp/unitary_param.py: every parametrization here is a pure, jittable,
 differentiable map  params -> unitary, so derivative-free optimization can be
 replaced by exact gradients (SURVEY.md section 7, stage B0).

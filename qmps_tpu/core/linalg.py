@@ -1,6 +1,6 @@
 """Differentiable linear-algebra utilities.
 
-TPU-first replacements for the reference's scipy.linalg.null_space-based
+JAX replacements for the reference's scipy.linalg.null_space-based
 constructions (qmps/tools.py:76-120), which are neither differentiable nor
 batchable.  Completion here is QR-based with a fixed deterministic filler
 (SURVEY.md section 7 "hard parts" item 4).
@@ -76,7 +76,7 @@ def row_completion(rows: jnp.ndarray) -> jnp.ndarray:
 
 
 def polar(A: jnp.ndarray):
-    """Polar decomposition A = U P via SVD (TPU-supported, differentiable)."""
+    """Polar decomposition A = U P via SVD (differentiable)."""
     u, s, vh = jnp.linalg.svd(A, full_matrices=False)
     U = u @ vh
     P = cT(vh) @ (s[:, None] * vh)

@@ -246,7 +246,7 @@ def heisenberg_exact_energy(J: float = 1.0) -> float:
 def host_energy_d2(A, h) -> float:
     """f64 host-numpy uMPS energy of a single left-canonical D = 2 tensor
     against a two-site Hamiltonian matrix — the independent validation
-    column used by the bench and the TPU probes (a device-side f32 energy
+    column used by the bench and chip_smoke.py (a device-side f32 energy
     readout can dip below the exact value near criticality; a REPORTED
     error must be one the returned tensor achieves in exact arithmetic).
 

@@ -31,8 +31,7 @@ class Hamiltonian:
         """Dense 4x4 matrix as a HOST numpy array.
 
         Host-side on purpose: Hamiltonian matrices are baked into jitted
-        objectives as constants, and this TPU backend cannot pull complex
-        device arrays back to the host at trace time (see config.py).
+        objectives as constants (host arrays embed as literals).
         Traced couplings are not supported here — use e.g.
         parallel.sweep.tfim_matrix for coupling-sweep tracing.
         """
@@ -82,8 +81,7 @@ class Hamiltonian:
 
 
 def as_host_matrix(H):
-    """Hamiltonian | array -> host numpy matrix when possible (device complex
-    arrays cannot cross to host on this TPU backend; jit closures must
+    """Hamiltonian | array -> host numpy matrix when possible (jit closures
     capture host constants)."""
     import numpy as np
 

@@ -1,15 +1,13 @@
-"""TPU-shaped batched brickwork contractions.
+"""Batched brickwork contractions as flat matmuls.
 
 The reference's hot kernel is a 13-operand einsum over rank-4 tensors of
-dim 2 (ManifoldOverlap.circuit).  That form does not map to this TPU
-generation: XLA/Mosaic compile time explodes on deep chains of tiny-dim
-reshapes (measured: >5 min for one vmapped instance), and complex constants
-can't even be broadcast host-side.
+dim 2 (ManifoldOverlap.circuit).  Vmapped as it stands, that form is a
+deep chain of tiny-dim reshapes that compiles slowly.
 
 This module re-expresses the same contractions as a short pipeline of
 *batched flat matmuls* — (B, 16, 16) kron blocks applied to (B, 2, 16, 2)
-state slabs — which compiles in seconds and keeps the batch dimension on
-the hardware's long axis.  Numerics are identical to
+state slabs — which compiles in seconds and keeps the batch dimension
+leading.  Numerics are identical to
 circuits.brickwork.manifold_overlap (tested to 1e-12 on CPU).
 
 Layout: 64 = (q0)(q1 q2 q3 q4)(q5); the U2 layer partitions as

@@ -2,15 +2,15 @@
 
 The config-4 phase-diagram sweep's per-step cost is value_and_grad of
 energy_exact_env(ansatz(p), h(g)) per point (objectives/energy.py:30-42;
-the reference's per-point optimization is
-/root/reference/scripts/ground_state_finding.py:100-154).  The
+the reference's per-point optimization is its
+scripts/ground_state_finding.py:100-154).  As plain XLA the
 energy-from-tensor pipeline — blocked transfer build, right fixed point,
-<h> contraction, and the fixed point's implicit adjoint — is a dozen
-separately-lowered tiny-contraction XLA stages per step, each an HBM
-round trip of (B, ...) intermediates: the same pathology the fused TDVP
-objective kernel removed (kernels/tdvp_fused.py).  This module fuses the
+<h> contraction, and the fixed point's implicit adjoint — is a 48-step
+scan of batched 4x4 complex products plus a K=24 series: on the order of
+a hundred small launches per optimizer step.  This module fuses the
 whole objective for D = 2: forward AND backward are one Pallas launch
-each over component-major planes.
+each (Triton route), every batch element's component planes held in
+registers for the whole solve.
 
 Math (per element; A left-canonical by construction — it comes from
 unitary_to_tensor of a unitary, so sum_s A_s^dag A_s = I exactly):
@@ -42,28 +42,24 @@ contractions; validated against jax.grad of objectives.energy
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from .pallas_power import _solve_planes
-from .tdvp_fused import (
-    LANE,
-    _cmul,
-    _comp_planes,
-    _plane_AA,
-    _wget_smem,
-    _wget_vmem,
-)
+__all__ = ["energy_objective_fused", "default_engine"]
 
-__all__ = ["energy_objective_fused"]
+#: batch elements per Triton program, and the warps that share them
+#: (one element per thread); no sweep over (BLOCK, warps) yet (PERF.md)
+BLOCK = 32
+NUM_WARPS = 1
 
 
 # ---------------------------------------------------------------------------
-# XLA reference implementation (the kernel's specification; also the
-# fallback path and the test oracle glue)
+# XLA reference implementation (the kernel's specification, the engine
+# off the GPU, and the test oracle glue)
 # ---------------------------------------------------------------------------
 
 
@@ -90,7 +86,7 @@ def _r_chain(v):
 
 def _eig_right_xla(E, iters):
     """Dominant right eigenpair by normalized repeated squaring (the same
-    algorithm as the Pallas solve; jittable, any backend)."""
+    algorithm as the kernel's solve; jittable, any backend)."""
     def step(M, _):
         M2 = M @ M
         n = jnp.sqrt(jnp.sum(jnp.abs(M2) ** 2, axis=(-2, -1), keepdims=True))
@@ -105,9 +101,21 @@ def _eig_right_xla(E, iters):
     return lam, v
 
 
+def _trace_phase(v):
+    """Rotate a unit eigenvector v (B, 4) = vec(r) so that tr(r) is real
+    and positive.  The energy is invariant to v's phase, but the
+    hermitization herm(e^{i phi} rho) = cos(phi) rho loses all of rho to
+    cancellation as phi -> pi/2: in float32 an arbitrary phase costs up to
+    ~1e-4 in the energy.  Any fixed phase is a valid eigenvector for the
+    adjoint below (its deflation removes the gauge direction)."""
+    t = v[:, 0] + v[:, 3]
+    return v * (jnp.conj(t) / jnp.maximum(jnp.abs(t), 1e-30))[:, None]
+
+
 def _energy_fwd_xla(As, hs, iters):
     AA, E = _build(As)
     lam, v = _eig_right_xla(E, iters)
+    v = _trace_phase(v)
     r2 = _r_chain(v)
     e = _energy_from_parts(AA, r2, hs)
     return e, lam, v
@@ -189,9 +197,114 @@ def _energy_bwd_xla(As, hs, lam, v, ct, K=24):
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernels: the same math on component-major planes, whole objective
-# (and whole adjoint) each in ONE launch
+# Pallas kernels (Triton route): the same math on component planes, whole
+# objective (and whole adjoint) each in ONE launch.  A plane is the (BLOCK,)
+# vector of one real scalar component across the program's batch elements;
+# every helper below is an unrolled stream of elementwise FMAs on planes.
 # ---------------------------------------------------------------------------
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _plane_AA(are, aim):
+    """AA[(s1 s2), i, j] = sum_k A[s1, i, k] A[s2, k, j] as a plane dict
+    (the two-site blocking)."""
+    aa = {}
+    for s1 in range(2):
+        for s2 in range(2):
+            for i in range(2):
+                for j in range(2):
+                    sr = si = None
+                    for k in range(2):
+                        pr, pi = _cmul(
+                            are[s1 * 4 + i * 2 + k], aim[s1 * 4 + i * 2 + k],
+                            are[s2 * 4 + k * 2 + j], aim[s2 * 4 + k * 2 + j],
+                        )
+                        sr = pr if sr is None else sr + pr
+                        si = pi if si is None else si + pi
+                    aa[(s1 * 2 + s2, i, j)] = (sr, si)
+    return aa
+
+
+def _chirps(N: int):
+    """Two fixed pseudo-random start vectors as python scalar pairs (they
+    inline into the kernel as constants)."""
+    c1 = [(math.cos(0.7 * j + 0.3), math.sin(1.3 * j + 1.1)) for j in range(N)]
+    c2 = [(math.cos(1.9 * j + 0.8), math.sin(0.5 * j + 2.0)) for j in range(N)]
+    return c1, c2
+
+
+def _solve_planes(iters, m_re, m_im):
+    """Dominant eigenpair of a batch of 4x4 matrices given as 16 re/im
+    planes: ``iters`` Frobenius-normalized squarings (error ~
+    |lam2/lam1|^(2^iters)), the eigenvector from applying the converged
+    power to two fixed chirps (the larger result wins, per element), and
+    the eigenvalue as the Rayleigh quotient with the ORIGINAL matrix.
+    Returns (lre, lim, vre, vim) with v unit-norm."""
+    N = 4
+
+    def body(_, carry):
+        e_re = list(carry[: N * N])
+        e_im = list(carry[N * N :])
+        r_re, r_im = [], []
+        for a in range(N):
+            for b in range(N):
+                sre = sim = None
+                for k in range(N):
+                    pr, pi = _cmul(e_re[a * N + k], e_im[a * N + k],
+                                   e_re[k * N + b], e_im[k * N + b])
+                    sre = pr if sre is None else sre + pr
+                    sim = pi if sim is None else sim + pi
+                r_re.append(sre)
+                r_im.append(sim)
+        n2 = sum(rr * rr + ii * ii for rr, ii in zip(r_re, r_im))
+        inv = jax.lax.rsqrt(jnp.maximum(n2, 1e-30))
+        return tuple(rr * inv for rr in r_re) + tuple(ii * inv for ii in r_im)
+
+    carry = jax.lax.fori_loop(0, iters, body, tuple(m_re) + tuple(m_im))
+    e_re, e_im = list(carry[: N * N]), list(carry[N * N :])
+
+    # E^(2^k) ~ lam^(2^k) v w^dag: applying it to any vector not orthogonal
+    # to w yields v
+    def apply_chirp(c):
+        vre, vim = [], []
+        for i in range(N):
+            are = aim = None
+            for j in range(N):
+                pr, pi = _cmul(e_re[i * N + j], e_im[i * N + j], *c[j])
+                are = pr if are is None else are + pr
+                aim = pi if aim is None else aim + pi
+            vre.append(are)
+            vim.append(aim)
+        return vre, vim
+
+    c1, c2 = _chirps(N)
+    v1re, v1im = apply_chirp(c1)
+    v2re, v2im = apply_chirp(c2)
+    n1 = sum(r * r + i2 * i2 for r, i2 in zip(v1re, v1im))
+    n2 = sum(r * r + i2 * i2 for r, i2 in zip(v2re, v2im))
+    use1 = n1 >= n2
+    vre = [jnp.where(use1, a, b) for a, b in zip(v1re, v2re)]
+    vim = [jnp.where(use1, a, b) for a, b in zip(v1im, v2im)]
+    inv = jax.lax.rsqrt(jnp.maximum(jnp.maximum(n1, n2), 1e-30))
+    vre = [r * inv for r in vre]
+    vim = [i2 * inv for i2 in vim]
+
+    # Rayleigh quotient with the original E (v unit norm)
+    lre = lim = None
+    for i in range(N):
+        wr = wi = None
+        for j in range(N):
+            pr, pi = _cmul(m_re[i * N + j], m_im[i * N + j], vre[j], vim[j])
+            wr = pr if wr is None else wr + pr
+            wi = pi if wi is None else wi + pi
+        # conj(v_i) * w_i
+        pr, pi = _cmul(vre[i], -vim[i], wr, wi)
+        lre = pr if lre is None else lre + pr
+        lim = pi if lim is None else lim + pi
+    return lre, lim, vre, vim
 
 
 def _plane_E(aa):
@@ -268,18 +381,34 @@ def _plane_M_T(aa, r2):
     return M, T
 
 
+def _hget(hre_ref, him_ref):
+    """h[t, s] accessor over the 16 entries, each loaded once.  A shared
+    h is a (16,) operand and each entry a scalar; a batched h is
+    (16, BLOCK) planes.  The arithmetic broadcasts either way."""
+    hre = [hre_ref[k] for k in range(16)]
+    him = [him_ref[k] for k in range(16)]
+    return lambda t, s: (hre[t * 4 + s], him[t * 4 + s])
+
+
 def _energy_fwd_kernel(
-    iters, h_batched, with_v,
+    iters, with_v,
     are_ref, aim_ref, hre_ref, him_ref,
     *out_refs,
 ):
     are = [are_ref[k] for k in range(8)]
     aim = [aim_ref[k] for k in range(8)]
-    hget = (_wget_vmem if h_batched else _wget_smem)(hre_ref, him_ref)
+    hget = _hget(hre_ref, him_ref)
 
     aa = _plane_AA(are, aim)
     e_re, e_im = _plane_E(aa)
-    lre, lim, vre, vim = _solve_planes(4, iters, e_re, e_im)
+    lre, lim, vre, vim = _solve_planes(iters, e_re, e_im)
+    # tr(r) real and positive (see _trace_phase)
+    tre, tim = vre[0] + vre[3], vim[0] + vim[3]
+    inv = jax.lax.rsqrt(jnp.maximum(tre * tre + tim * tim, 1e-30))
+    vre, vim = (
+        [(x * tre + y * tim) * inv for x, y in zip(vre, vim)],
+        [(y * tre - x * tim) * inv for x, y in zip(vre, vim)],
+    )
     _, r2, _, _ = _plane_r_chain(vre, vim)
     _, T = _plane_M_T(aa, r2)
 
@@ -291,24 +420,24 @@ def _energy_fwd_kernel(
             term = hr * tr_ - hi * ti_
             e = term if e is None else e + term
 
-    out_refs[0][:] = e
+    out_refs[0][...] = e
     if with_v:
-        out_refs[1][:] = lre
-        out_refs[2][:] = lim
+        out_refs[1][...] = lre
+        out_refs[2][...] = lim
         for i in range(4):
             out_refs[3][i] = vre[i]
             out_refs[4][i] = vim[i]
 
 
 def _energy_bwd_kernel(
-    K, h_batched,
+    K,
     are_ref, aim_ref, hre_ref, him_ref,
     vre_ref, vim_ref, lre_ref, lim_ref, ct_ref,
     oar, oai, ohr, ohi,
 ):
     are = [are_ref[k] for k in range(8)]
     aim = [aim_ref[k] for k in range(8)]
-    hget = (_wget_vmem if h_batched else _wget_smem)(hre_ref, him_ref)
+    hget = _hget(hre_ref, him_ref)
     vre = [vre_ref[i] for i in range(4)]
     vim = [vim_ref[i] for i in range(4)]
     lre, lim = lre_ref[...], lim_ref[...]
@@ -328,24 +457,31 @@ def _energy_bwd_kernel(
             ohi[t * 4 + s] = ct * ti_
 
     # ---- direct AA pullbacks ----
-    # C1[t,i,j] = sum_k r2[j,k] conj(AA[t,i,k]);
-    # AAbar_d1[s,i,j] = ct sum_t h[t,s] C1[t,i,j]
-    # AAbar_d2[t,i,k] = ct conj( sum_s h[t,s] M[s,i,k] )
+    # Q[s,i,k] = sum_t h[t,s] conj(AA[t,i,k]) serves both
+    #   AAbar_d1[s,i,j] = ct sum_k r2[j,k] Q[s,i,k]
+    #   r2bar[j,k]     = ct sum_{s,i} AA[s,i,j] Q[s,i,k]
+    # and AAbar_d2[t,i,k] = ct conj( sum_s h[t,s] M[s,i,k] )
+    Q = {}
+    for s in range(4):
+        for i in range(2):
+            for k in range(2):
+                sr = si = None
+                for t in range(4):
+                    hr, hi = hget(t, s)
+                    ar, ai = aa[(t, i, k)]
+                    pr, pi = _cmul(hr, hi, ar, -ai)
+                    sr = pr if sr is None else sr + pr
+                    si = pi if si is None else si + pi
+                Q[(s, i, k)] = (sr, si)
     G = {}
     for s in range(4):
         for i in range(2):
             for j in range(2):
                 sr = si = None
-                for t in range(4):
-                    hr, hi = hget(t, s)
-                    c1r = c1i = None
-                    for k in range(2):
-                        rr, ri = r2[(j, k)]
-                        ar, ai = aa[(t, i, k)]
-                        pr, pi = _cmul(rr, ri, ar, -ai)
-                        c1r = pr if c1r is None else c1r + pr
-                        c1i = pi if c1i is None else c1i + pi
-                    pr, pi = _cmul(hr, hi, c1r, c1i)
+                for k in range(2):
+                    rr, ri = r2[(j, k)]
+                    qr, qi = Q[(s, i, k)]
+                    pr, pi = _cmul(rr, ri, qr, qi)
                     sr = pr if sr is None else sr + pr
                     si = pi if si is None else si + pi
                 G[(s, i, j)] = (ct * sr, ct * si)
@@ -362,21 +498,17 @@ def _energy_bwd_kernel(
                 gr, gi = G[(t, i, k)]
                 G[(t, i, k)] = (gr + ct * sr, gi - ct * si)  # + conj
 
-    # ---- r2bar[j,k] = ct sum_{s,t,i} h[t,s] AA[s,i,j] conj(AA[t,i,k]) ----
     r2bar = {}
     for j in range(2):
         for k in range(2):
             sr = si = None
             for s in range(4):
-                for t in range(4):
-                    hr, hi = hget(t, s)
-                    for i in range(2):
-                        xr, xi = aa[(s, i, j)]
-                        yr, yi = aa[(t, i, k)]
-                        pr, pi = _cmul(xr, xi, yr, -yi)
-                        qr, qi = _cmul(hr, hi, pr, pi)
-                        sr = qr if sr is None else sr + qr
-                        si = qi if si is None else si + qi
+                for i in range(2):
+                    ar, ai = aa[(s, i, j)]
+                    qr, qi = Q[(s, i, k)]
+                    pr, pi = _cmul(ar, ai, qr, qi)
+                    sr = pr if sr is None else sr + pr
+                    si = pi if si is None else si + pi
             r2bar[(j, k)] = (ct * sr, ct * si)
 
     # ---- r1bar = r2bar / tau - (sum r2bar*r1)/tau^2 * I ----
@@ -487,37 +619,43 @@ def _energy_bwd_kernel(
         xr, xi = carry[i], carry[4 + i]
         z.append(((xr * lre + xi * lim) * lden, (xi * lre - xr * lim) * lden))
 
-    # ---- Ebar = z v^T ;  pull back through the E build ----
-    Eb = {}
-    for r in range(4):
-        for c in range(4):
-            Eb[(r, c)] = _cmul(z[r][0], z[r][1], vre[c], vim[c])
-    # AAbar_E1[s,i,k] = sum_{j,l} Ebar[(ij),(kl)] conj(AA[s,j,l])
+    # ---- Ebar = z v^T (rank 1) ;  pull back through the E build ----
+    # AAbar_E1[s,i,k] = sum_{j,l} z[(ij)] v[(kl)] conj(AA[s,j,l])
+    #                 = sum_j z[(ij)] W1[s,j,k],  W1 = sum_l v[(kl)] conj(AA[s,j,l])
+    # AAbar_E2[s,j,l] = conj( sum_i z[(ij)] W2[s,i,l] ),
+    #                   W2 = sum_k v[(kl)] AA[s,i,k]
     for s in range(4):
+        W1, W2 = {}, {}
+        for a in range(2):
+            for b in range(2):
+                w1r = w1i = w2r = w2i = None
+                for c in range(2):
+                    ar2, ai2 = aa[(s, a, c)]
+                    pr, pi = _cmul(vre[b * 2 + c], vim[b * 2 + c], ar2, -ai2)
+                    w1r = pr if w1r is None else w1r + pr
+                    w1i = pi if w1i is None else w1i + pi
+                    ar2, ai2 = aa[(s, a, c)]
+                    pr, pi = _cmul(vre[c * 2 + b], vim[c * 2 + b], ar2, ai2)
+                    w2r = pr if w2r is None else w2r + pr
+                    w2i = pi if w2i is None else w2i + pi
+                W1[(a, b)] = (w1r, w1i)  # W1[s, j=a, k=b]
+                W2[(a, b)] = (w2r, w2i)  # W2[s, i=a, l=b]
         for i in range(2):
             for k in range(2):
                 sr = si = None
                 for j in range(2):
-                    for l in range(2):
-                        er, ei = Eb[(i * 2 + j, k * 2 + l)]
-                        ar2, ai2 = aa[(s, j, l)]
-                        pr, pi = _cmul(er, ei, ar2, -ai2)
-                        sr = pr if sr is None else sr + pr
-                        si = pi if si is None else si + pi
+                    pr, pi = _cmul(z[i * 2 + j][0], z[i * 2 + j][1], *W1[(j, k)])
+                    sr = pr if sr is None else sr + pr
+                    si = pi if si is None else si + pi
                 gr, gi = G[(s, i, k)]
                 G[(s, i, k)] = (gr + sr, gi + si)
-    # AAbar_E2[s,j,l] = conj( sum_{i,k} Ebar[(ij),(kl)] AA[s,i,k] )
-    for s in range(4):
         for j in range(2):
             for l in range(2):
                 sr = si = None
                 for i in range(2):
-                    for k in range(2):
-                        er, ei = Eb[(i * 2 + j, k * 2 + l)]
-                        ar2, ai2 = aa[(s, i, k)]
-                        pr, pi = _cmul(er, ei, ar2, ai2)
-                        sr = pr if sr is None else sr + pr
-                        si = pi if si is None else si + pi
+                    pr, pi = _cmul(z[i * 2 + j][0], z[i * 2 + j][1], *W2[(i, l)])
+                    sr = pr if sr is None else sr + pr
+                    si = pi if si is None else si + pi
                 gr, gi = G[(s, j, l)]
                 G[(s, j, l)] = (gr + sr, gi - si)  # + conj
 
@@ -542,124 +680,133 @@ def _energy_bwd_kernel(
                 oai[s * 4 + a * 2 + b] = si
 
 
-def _fwd_pallas(As, hs, iters, with_v, tile_rows=8, interpret=False):
+def _planes(x, ncomp, Bp):
+    """(B, ...) complex -> component-major (ncomp, Bp) float32 re/im
+    planes, zero-padded along the batch (a zero element runs through
+    every clamped division and comes out finite; it is sliced off)."""
+    B = x.shape[0]
+    flat = x.reshape(B, ncomp).T
+    pad = ((0, 0), (0, Bp - B))
+    return (jnp.pad(jnp.real(flat).astype(jnp.float32), pad),
+            jnp.pad(jnp.imag(flat).astype(jnp.float32), pad))
+
+
+def _h_operands(hs, As, Bp, block):
+    """(hre, him, spec): per-element h as 16 planes, or a shared h as one
+    (16,) operand that every program reads whole."""
+    if hs.ndim == 3:
+        hre, him = _planes(hs.astype(As.dtype), 16, Bp)
+        return hre, him, pl.BlockSpec((16, block), lambda i: (0, i))
+    hre = jnp.real(hs).astype(jnp.float32).reshape(16)
+    him = jnp.imag(hs).astype(jnp.float32).reshape(16)
+    return hre, him, pl.BlockSpec((16,), lambda i: (0,))
+
+
+def _launch(kernel, args, in_specs, out_specs, out_shape, Bp, block,
+            num_warps, interpret):
+    return pl.pallas_call(
+        kernel,
+        grid=(Bp // block,),
+        in_specs=in_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name=kernel.func.__name__,
+    )(*args)
+
+
+def _fwd_pallas(As, hs, iters, with_v, interpret=False, block=BLOCK,
+                num_warps=NUM_WARPS):
     """Launch the forward kernel.  As (B, 2, 2, 2); hs (4, 4) shared or
     (B, 4, 4).  Returns e [, lam, v]."""
     B = As.shape[0]
-    pad = (-B) % (tile_rows * LANE)
-    Bp = B + pad
-    R = Bp // LANE
-    h_batched = hs.ndim == 3
+    Bp = B + (-B) % block
+    are, aim = _planes(As, 8, Bp)
+    hre, him, hspec = _h_operands(hs, As, Bp, block)
 
-    are, aim = _comp_planes(As, 8, B, pad, R)
-    if h_batched:
-        hre, him = _comp_planes(hs.astype(As.dtype), 16, B, pad, R)
-    else:
-        hre = jnp.real(hs).astype(jnp.float32)
-        him = jnp.imag(hs).astype(jnp.float32)
+    def pspec(n):
+        return pl.BlockSpec((n, block), lambda i: (0, i))
 
-    grid = (R // tile_rows,)
-
-    def vspec(n):
-        return pl.BlockSpec(
-            (n, tile_rows, LANE), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        )
-
-    hspec = vspec(16) if h_batched else pl.BlockSpec(memory_space=pltpu.SMEM)
-    lspec = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    out_specs = [lspec]
-    out_shape = [jax.ShapeDtypeStruct((R, LANE), jnp.float32)]
+    sspec = pl.BlockSpec((block,), lambda i: (i,))
+    plane = lambda *n: jax.ShapeDtypeStruct(n + (Bp,), jnp.float32)
+    out_specs, out_shape = [sspec], [plane()]
     if with_v:
-        out_specs += [lspec, lspec, vspec(4), vspec(4)]
-        out_shape += [
-            jax.ShapeDtypeStruct((R, LANE), jnp.float32),
-            jax.ShapeDtypeStruct((R, LANE), jnp.float32),
-            jax.ShapeDtypeStruct((4, R, LANE), jnp.float32),
-            jax.ShapeDtypeStruct((4, R, LANE), jnp.float32),
-        ]
+        out_specs += [sspec, sspec, pspec(4), pspec(4)]
+        out_shape += [plane(), plane(), plane(4), plane(4)]
 
-    outs = pl.pallas_call(
-        functools.partial(_energy_fwd_kernel, iters, h_batched, with_v),
-        grid=grid,
-        in_specs=[vspec(8), vspec(8), hspec, hspec],
-        out_specs=out_specs,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(are, aim, hre, him)
-
-    e = outs[0].reshape(Bp)[:B]
+    outs = _launch(
+        functools.partial(_energy_fwd_kernel, iters, with_v),
+        (are, aim, hre, him),
+        [pspec(8), pspec(8), hspec, hspec], out_specs, out_shape,
+        Bp, block, num_warps, interpret,
+    )
+    e = outs[0][:B]
     if not with_v:
         return e
-    lam = jax.lax.complex(outs[1], outs[2]).reshape(Bp)[:B]
-    v = jax.lax.complex(outs[3], outs[4]).reshape(4, Bp).T[:B]
+    lam = jax.lax.complex(outs[1], outs[2])[:B]
+    v = jax.lax.complex(outs[3], outs[4]).T[:B]
     return e, lam, v
 
 
-def _bwd_pallas(As, hs, lam, v, ct, K=24, tile_rows=8, interpret=False):
+def _bwd_pallas(As, hs, lam, v, ct, K=24, interpret=False, block=BLOCK,
+                num_warps=NUM_WARPS):
     """Launch the backward kernel; returns (Abar, hbar_complex (B,4,4))."""
     B = As.shape[0]
-    pad = (-B) % (tile_rows * LANE)
-    Bp = B + pad
-    R = Bp // LANE
-    h_batched = hs.ndim == 3
+    Bp = B + (-B) % block
+    are, aim = _planes(As, 8, Bp)
+    hre, him, hspec = _h_operands(hs, As, Bp, block)
+    vre, vim = _planes(v, 4, Bp)
+    lre, lim = _planes(lam, 1, Bp)
+    ctp, _ = _planes(ct.astype(jnp.complex64), 1, Bp)
 
-    are, aim = _comp_planes(As, 8, B, pad, R)
-    if h_batched:
-        hre, him = _comp_planes(hs.astype(As.dtype), 16, B, pad, R)
-    else:
-        hre = jnp.real(hs).astype(jnp.float32)
-        him = jnp.imag(hs).astype(jnp.float32)
-    vre, vim = _comp_planes(v, 4, B, pad, R)
-    lre, lim = _comp_planes(lam, 1, B, pad, R)
-    ctp, _ = _comp_planes(ct.astype(jnp.complex64), 1, B, pad, R)
+    def pspec(n):
+        return pl.BlockSpec((n, block), lambda i: (0, i))
 
-    grid = (R // tile_rows,)
-
-    def vspec(n):
-        return pl.BlockSpec(
-            (n, tile_rows, LANE), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        )
-
-    hspec = vspec(16) if h_batched else pl.BlockSpec(memory_space=pltpu.SMEM)
-    lspec = pl.BlockSpec((tile_rows, LANE), lambda i: (i, 0), memory_space=pltpu.VMEM)
-
-    outs = pl.pallas_call(
-        functools.partial(_energy_bwd_kernel, K, h_batched),
-        grid=grid,
-        in_specs=[vspec(8), vspec(8), hspec, hspec, vspec(4), vspec(4)]
-        + [lspec] * 3,
-        out_specs=[vspec(8), vspec(8), vspec(16), vspec(16)],
-        out_shape=[jax.ShapeDtypeStruct((8, R, LANE), jnp.float32)] * 2
-        + [jax.ShapeDtypeStruct((16, R, LANE), jnp.float32)] * 2,
-        interpret=interpret,
-    )(
-        are, aim, hre, him, vre, vim,
-        lre.reshape(R, LANE), lim.reshape(R, LANE), ctp.reshape(R, LANE),
+    sspec = pl.BlockSpec((block,), lambda i: (i,))
+    plane = lambda n: jax.ShapeDtypeStruct((n, Bp), jnp.float32)
+    outs = _launch(
+        functools.partial(_energy_bwd_kernel, K),
+        (are, aim, hre, him, vre, vim, lre[0], lim[0], ctp[0]),
+        [pspec(8), pspec(8), hspec, hspec, pspec(4), pspec(4)] + [sspec] * 3,
+        [pspec(8), pspec(8), pspec(16), pspec(16)],
+        [plane(8), plane(8), plane(16), plane(16)],
+        Bp, block, num_warps, interpret,
     )
 
-    def reassemble(re, im, ncomp, shape):
-        zz = jax.lax.complex(re, im).reshape(ncomp, Bp).T[:B]
+    def reassemble(re, im, shape):
+        zz = jax.lax.complex(re, im).T[:B]
         return zz.reshape((B,) + shape).astype(As.dtype)
 
-    Abar = reassemble(outs[0], outs[1], 8, (2, 2, 2))
-    hbar = reassemble(outs[2], outs[3], 16, (4, 4))
+    Abar = reassemble(outs[0], outs[1], (2, 2, 2))
+    hbar = reassemble(outs[2], outs[3], (4, 4))
     return Abar, hbar
 
 
 # ---------------------------------------------------------------------------
-# public face (XLA path for now; the Pallas kernels plug in behind the
-# same custom_vjp without changing semantics)
+# public face
 # ---------------------------------------------------------------------------
 
+ENGINES = ("pallas", "xla")
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+
+def default_engine(engine: str | None = None) -> str:
+    """Resolve an energy engine: the Triton kernel where the default
+    backend is a GPU, the XLA specification elsewhere."""
+    if engine is None:
+        return "pallas" if jax.default_backend() == "gpu" else "xla"
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES} or None, got {engine!r}")
+    return engine
+
+
 def energy_objective_fused(
     As: jnp.ndarray,
     hs: jnp.ndarray,
     iters: int = 48,
     interpret: bool = False,
-    engine: str = "pallas",
+    engine: str | None = None,
 ) -> jnp.ndarray:
     """Batched D = 2 uMPS energy with exact environments: (B, 2, 2, 2)
     left-canonical tensors + per-point (B, 4, 4) (or shared (4, 4))
@@ -672,12 +819,25 @@ def energy_objective_fused(
     unitary_to_tensor output): the left fixed point is hardcoded to the
     identity.
 
-    engine="pallas" (default): whole objective one kernel launch, whole
-    adjoint a second (f32 component planes).  engine="xla": the same math
-    as traced XLA in the caller's precision — the kernel's specification
-    and the x64 test oracle.
+    engine="pallas": whole objective one Triton kernel launch, whole
+    adjoint a second (float32 component planes); ``interpret=True`` runs
+    the kernels in the Pallas interpreter (tests, no GPU).  engine="xla":
+    the same math as traced XLA in the caller's precision — the kernel's
+    specification and the x64 test oracle.  engine=None picks
+    ``default_engine()``.
     """
+    if As.ndim != 4 or As.shape[1:] != (2, 2, 2):
+        raise ValueError(f"As must be (B, 2, 2, 2) D=2 tensors, got {As.shape}")
     hs = jnp.asarray(hs)
+    if hs.shape not in ((4, 4), (As.shape[0], 4, 4)):
+        raise ValueError(
+            f"hs must be (4, 4) or (B, 4, 4) with B={As.shape[0]}, got {hs.shape}"
+        )
+    return _energy(As, hs, iters, interpret, default_engine(engine))
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+def _energy(As, hs, iters, interpret, engine):
     if engine == "pallas":
         return _fwd_pallas(As, hs, iters, with_v=False, interpret=interpret)
     e, _, _ = _energy_fwd_xla(As, _broadcast_h(hs, As.shape[0]), iters)
@@ -685,14 +845,12 @@ def energy_objective_fused(
 
 
 def _broadcast_h(hs, B):
-    hs = jnp.asarray(hs)
     if hs.ndim == 2:
         hs = jnp.broadcast_to(hs[None], (B, 4, 4))
     return hs
 
 
 def _fwd(As, hs, iters, interpret, engine):
-    hs = jnp.asarray(hs)
     if engine == "pallas":
         e, lam, v = _fwd_pallas(As, hs, iters, with_v=True, interpret=interpret)
     else:
@@ -713,4 +871,4 @@ def _bwd(iters, interpret, engine, res, ct):
     return Abar, hbar.astype(hs.dtype)
 
 
-energy_objective_fused.defvjp(_fwd, _bwd)
+_energy.defvjp(_fwd, _bwd)

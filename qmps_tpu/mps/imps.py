@@ -1,6 +1,6 @@
 """Uniform (infinite, translation-invariant) MPS.
 
-This module is the TPU-native replacement for the external xmps library the
+This module is the JAX-native replacement for the external xmps library the
 reference leans on everywhere (SURVEY.md L0): iMPS, TransferMatrix and Map
 with the same capabilities — random states, canonical forms, mixed gauge,
 expectation values, overlaps and fixed points — but built from jit-safe,
@@ -43,7 +43,7 @@ def _cholesky_psd(M: jnp.ndarray) -> jnp.ndarray:
     """Cholesky of a hermitian PSD matrix with a tiny jitter for safety.
 
     The jitter must scale with the DTYPE's epsilon: a fixed 1e-14 is far
-    below complex64 resolution, so in TPU (x64-off) mode rank-deficient
+    below complex64 resolution, so in 32-bit (x64-off) mode rank-deficient
     fixed points — product states, D -> 2D warm-start embeddings — have
     f32 roundoff eigenvalues ~ -1e-8 that 1e-14 cannot lift, and
     jnp.linalg.cholesky silently returns NaN."""
@@ -237,7 +237,7 @@ class iMPS:
     def entanglement_entropy(self) -> jnp.ndarray:
         """Half-chain von Neumann entropy S = -sum s^2 log s^2 of the
         bipartition Schmidt spectrum.  The log guard must be dtype-aware:
-        a float literal like 1e-300 underflows to 0 in float32 (the TPU
+        a float literal like 1e-300 underflows to 0 in float32 (the
         x64-off mode), making the clip a no-op and an exactly-zero Schmidt
         coefficient yield 0 * log(0) = NaN."""
         s2 = self.schmidt_values() ** 2

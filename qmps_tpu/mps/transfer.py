@@ -1,4 +1,4 @@
-"""Transfer-operator fixed points, TPU-style.
+"""Transfer-operator fixed points as batched, differentiable JAX programs.
 
 The reference gets environments from dense scipy eigensolves
 (qmps/tools.py:176-182 via xmps TransferMatrix.eigs;
@@ -8,7 +8,7 @@ solvers:
 
 - ``dominant_eig_dense``: repeated squaring of the dense transfer matrix.
   log2-convergent (error ~ gap^(2^iters)), so ~30 matmuls give machine
-  precision for any spectral gap; ideal on the MXU for D <= 64.
+  precision for any spectral gap; dense-matmul work for D <= 64.
 - ``dominant_eig_power``: scan-based power iteration in matvec form,
   O(d D^3) per step, for large D where the dense D^2 x D^2 operator is too
   big to materialize.
@@ -287,11 +287,10 @@ def right_eigpair_warm(
 ):
     """Dominant (lam, r) of the right transfer action, warm-started at r0.
 
-    The DMRG/TDVP environment-recycling move, TPU-style: inside an
-    optimizer scan the fixed point moves O(lr) per step, so ``iters``
-    cheap operator-form matvecs (O(d D^3) each) from the previous step's
-    ``r`` replace the from-scratch dense squaring chain (40 matmuls of the
-    D^2 x D^2 matrix) — measured 9-13x per-step on one v5e at D = 8-64
+    The DMRG/TDVP environment-recycling move: inside an optimizer scan
+    the fixed point moves O(lr) per step, so ``iters`` cheap operator-form
+    matvecs (O(d D^3) each) from the previous step's ``r`` replace the
+    from-scratch dense squaring chain (40 matmuls of the D^2 x D^2 matrix)
     with identical converged energies (optim/riemann.py consumes this).
 
     Forward: normalized power iteration from r0 (for A == B the map is
@@ -356,11 +355,9 @@ def _warm_bwd(iters, bwd, res, cts):
         # matvecs), not the cold adjoint's 400: the gradient is evaluated
         # at the RECYCLED pair, itself only O(power-residual) off the true
         # fixed point, so solving the bordered system to machine precision
-        # buys nothing — measured at D=64 on one v5e: a 400-matvec budget
-        # costs 4x per step (145 -> 37 steps/s) with converged errors
-        # unchanged (1.45e-4 vs 1.58e-4)
-        # (k=32 beats _krylov_dims's k=48 here: same matvec total, less
-        # orthogonalization per cycle — measured 146 vs 124 steps/s at D=64)
+        # buys nothing: a 400-matvec budget costs ~4x per step with
+        # converged errors unchanged.  k=32 rather than _krylov_dims's
+        # k=48: the same matvec total with less orthogonalization per cycle
         k = min(n + 1, 32)
         restarts = max(3, -(-4 * iters // k))
         sol, _ = gmres_solve(op, rhs, k=k, restarts=restarts)
@@ -379,11 +376,10 @@ def right_eigpair_warm_unroll(A, B, r0, iters: int = 24):
     """``right_eigpair_warm`` with PLAIN reverse-mode AD through the
     power iterations instead of the implicit bordered-solve adjoint.
 
-    Rationale (measured, one v5e, D=8 B=1024 deep-brickwork sweep step):
-    under vmap the implicit adjoint's batched (D^2+1)^2 complex LU is
-    pivot-sequential and dominates the whole optimizer step — 49 ms of a
-    59 ms step — while the batched-GMRES form is 3x worse again
-    (orthogonalization chain).  Backward through ``iters`` matvecs is
+    Rationale: under vmap the implicit adjoint's batched (D^2+1)^2
+    complex LU is pivot-sequential and dominates the whole optimizer step
+    (most of a D=8, B=1024 deep-brickwork sweep step), while the
+    batched-GMRES form is slower again (orthogonalization chain).  Backward through ``iters`` matvecs is
     pure batched matmuls (~2x the forward's cost) and computes the EXACT
     gradient of the quantity actually evaluated — the iters-step-refined
     energy from a stop-gradient start — which is the loss the recycled

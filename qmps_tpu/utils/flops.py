@@ -1,31 +1,9 @@
-"""Analytic FLOP/byte accounting and v5e roofline constants.
+"""Analytic FLOP/byte accounting from XLA's cost model.
 
-The judging axis for kernel rows is MFU — achieved fraction of the
-hardware's peak — not raw throughput ratios against the reference's
-laptop numbers.  This module holds (a) the v5e peak constants with their
-derivations spelled out, and (b) ``program_costs``, which reads FLOP and
-byte counts out of XLA's own cost model for a lowered program (backend
--independent HLO math; used by scripts/flops_audit.py to produce the
-hard-coded per-eval constants in bench.py — the hot kernels are Pallas,
-whose custom calls XLA's cost model cannot see into, so bench rows use
-the audited XLA-twin counts of the SAME math).
-
-Peak derivations (TPU v5e, one chip; jax-ml.github.io/scaling-book
-"TPU architecture" chapter numbers):
-
-- ``MXU_BF16``: 197e12 FLOP/s — the headline bf16 systolic-array rate.
-- ``MXU_F32``: 197e12 / 6 — this package pins
-  jax_default_matmul_precision="highest" (qmps_tpu/__init__.py), which
-  implements an f32-accurate matmul as 6 bf16 passes on the MXU, so the
-  attainable f32 matmul rate is peak/6.  MFU of matmul-bound rows is
-  reported against THIS number (the arithmetic actually requested), with
-  the bf16 fraction derivable by dividing by 6.
-- ``VPU_F32``: 8x128 lanes x 4 ALUs x 2 FLOP (FMA) x 0.94 GHz
-  = 7.7e12 FLOP/s.  The D=2 component-plane kernels (fused TDVP/energy,
-  the N=4 squaring eigensolver) are pure elementwise FMA streams over
-  (8, 128) vregs — they never touch the MXU, so their MFU is against the
-  VPU peak and their real ceiling is usually HBM (see ``HBM_BPS``).
-- ``HBM_BPS``: 8.19e11 bytes/s (819 GB/s).
+``program_costs`` reads FLOP and byte counts out of XLA's own cost model
+for a lowered program (backend-independent HLO math; used by
+scripts/flops_audit.py).  No device peak is assumed here: a roofline share
+needs peaks measured on the device in the same run.
 
 Complex arithmetic counts as its real-FLOP content (one complex FMA = 8
 real FLOPs), which is what XLA's cost model reports for complex HLOs.
@@ -33,11 +11,6 @@ real FLOPs), which is what XLA's cost model reports for complex HLOs.
 from __future__ import annotations
 
 from typing import Callable
-
-MXU_BF16 = 1.97e14
-MXU_F32 = MXU_BF16 / 6.0
-VPU_F32 = 8 * 128 * 4 * 2 * 0.94e9
-HBM_BPS = 8.19e11
 
 
 def program_costs(fn: Callable, *args, static_argnums=()) -> dict:
@@ -51,28 +24,8 @@ def program_costs(fn: Callable, *args, static_argnums=()) -> dict:
     import jax
 
     jitted = jax.jit(fn, static_argnums=static_argnums)
-    compiled = jitted.lower(*args).compile()
-    costs = compiled.cost_analysis()
-    if isinstance(costs, list):  # older jax returns [dict]
-        costs = costs[0]
+    costs = jitted.lower(*args).compile().cost_analysis()
     return {
         "flops": float(costs.get("flops", 0.0)),
         "bytes": float(costs.get("bytes accessed", 0.0)),
     }
-
-
-def mfu_fields(prefix: str, flops_per_call: float, calls_per_sec: float,
-               peak: float, hbm_bytes_per_call: float | None = None) -> dict:
-    """Derived bench fields for one row: achieved GFLOP/s, MFU vs the
-    given peak, and (for fused kernels, where HBM traffic is exactly the
-    operand+result planes) achieved HBM GB/s and fraction of peak BW."""
-    rate = flops_per_call * calls_per_sec
-    out = {
-        f"{prefix}_gflops": round(rate / 1e9, 1),
-        f"{prefix}_mfu": round(rate / peak, 4),
-    }
-    if hbm_bytes_per_call is not None:
-        bw = hbm_bytes_per_call * calls_per_sec
-        out[f"{prefix}_hbm_gbps"] = round(bw / 1e9, 1)
-        out[f"{prefix}_hbm_frac"] = round(bw / HBM_BPS, 4)
-    return out

@@ -1,12 +1,11 @@
-"""Audit analytic per-eval FLOP counts for the benched kernel rows.
+"""Audit analytic per-element FLOP counts for the benched programs.
 
 Runs on CPU (forced below) and reads FLOP counts out of XLA's cost model
-via qmps_tpu.utils.flops.program_costs.  The benched hot kernels are
-Pallas, whose custom calls the cost model cannot see into, so each row is
-audited through its XLA TWIN — the same math as traced XLA (the fused
-kernels' test oracles), giving the analytic work the fused kernel
-performs.  The printed JSON is pasted into bench.py's KERNEL_FLOPS table
-(provenance: this script).
+via qmps_tpu.utils.flops.program_costs.  The fused D=2 energy kernel is a
+Pallas call, whose custom call the cost model cannot see into, so it is
+audited through its XLA TWIN — the same math as traced XLA (the kernel's
+test oracle), giving the analytic work the kernel performs.  Prints one
+JSON object of counts.
 
 Usage: python scripts/flops_audit.py [--deep]   (--deep adds the
 D=32/64 deep-brickwork and D=16/32 Stiefel step programs — minutes of
@@ -14,9 +13,10 @@ CPU compile time.)
 """
 import functools
 import json
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
@@ -61,7 +61,7 @@ def rand_c64(key, shape):
 
 B = 512
 
-# --- 1. brickwork manifold overlap (XLA twin of the fused Pallas kernel) ---
+# --- 1. brickwork manifold overlap (batched flat matmuls) ---
 from qmps_tpu.kernels import manifold_overlap_batched
 
 U1, U2, U1p, U2p = (rand_c64(i, (B, 4, 4)) for i in range(4))
@@ -76,14 +76,14 @@ per_el(
     U1, U2, U1p, U2p, M, W, B=B,
 )
 
-# --- 2. N=4 squaring eigensolver (twin of pallas_power.dominant_eig) ---
+# --- 2. N=4 batched repeated-squaring eigensolver ---
 from qmps_tpu.kernels.energy_fused import _eig_right_xla
 
 E = rand_c64(7, (B, 4, 4))
 per_el("eig40", lambda e: _eig_right_xla(e, 40)[0], E, B=B)
 per_el("eig48", lambda e: _eig_right_xla(e, 48)[0], E, B=B)
 
-# --- 3. fused TDVP objective forward (build + 48-iter eigensolve) ---
+# --- 3. D=2 TDVP objective forward (build + 48-iter eigensolve) ---
 As, Bs = rand_c64(8, (B, 2, 2, 2)), rand_c64(9, (B, 2, 2, 2))
 W4 = rand_c64(10, (4, 4))
 
@@ -98,8 +98,9 @@ def tdvp_fwd_xla(A, Bt, W):
 
 
 per_el("tdvp_fwd", tdvp_fwd_xla, As, Bs, W4, B=B)
-# fused grad = with_left forward (build + right AND left eigensolves) +
-# the transposed build: 2*build + 2*eig48, with build = tdvp_fwd - eig48
+# grad = forward with the left eigenvector too (build + right AND left
+# eigensolves) + the transposed build: 2*build + 2*eig48, with
+# build = tdvp_fwd - eig48
 OUT["tdvp_grad"] = round(2 * (OUT["tdvp_fwd"] - OUT["eig48"]) + 2 * OUT["eig48"], 1)
 print(f"tdvp_grad (synthesized): {OUT['tdvp_grad']:.1f} flops/el", flush=True)
 

@@ -1,5 +1,5 @@
 """Gen-2 brickwork stack: state builders, tensor converters, energies,
-TDVP evolution, and the TPU fast kernel's exactness."""
+TDVP evolution, and the batched flat-matmul kernel's exactness."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,7 +170,7 @@ def test_bricks_from_tensor_structure(key):
 
 @pytest.mark.slow
 def test_warm_start_quench_tracks_exact_rate():
-    """The classical warm start (VERDICT item 7): compile a classically
+    """The classical warm start: compile a classically
     found D=2 TFIM ground state into the brickwork manifold, quench with
     the calibrated window gate, and reproduce the exact rate to < 1e-2."""
     from qmps_tpu.algorithms import find_ground_state

@@ -113,8 +113,8 @@ def test_near_critical_gradient():
 
 
 def test_pallas_forward_matches_xla_engine():
-    """The fused kernel (interpret mode, f32 planes) against the x64 XLA
-    specification of the same math."""
+    """The fused Triton kernel (interpret mode, f32 planes) against the x64
+    XLA specification of the same math."""
     As, hs = _batch(3)
     e_k = energy_objective_fused(
         As.astype(jnp.complex64), hs.astype(jnp.float32), 32, True, "pallas"
@@ -126,9 +126,7 @@ def test_pallas_forward_matches_xla_engine():
 @pytest.mark.slow
 def test_pallas_gradient_matches_xla_engine():
     """Kernel adjoint (one launch: rebuild + deflated series + transposed
-    builds) against the validated XLA adjoint.  Slow suite: interpret-mode
-    custom-vjp traces are ~30s on one CPU; the same agreement is asserted
-    on-chip in the bench."""
+    builds) against the validated XLA adjoint, batched and shared h."""
     As, hs = _batch(2)
     As32, hs32 = As.astype(jnp.complex64), hs.astype(jnp.float32)
 
@@ -147,3 +145,128 @@ def test_pallas_gradient_matches_xla_engine():
         lambda h: jnp.sum(energy_objective_fused(As, h, 48, False, "xla"))
     )(hs)
     np.testing.assert_allclose(np.asarray(ghk), np.asarray(ghx), atol=3e-4)
+
+
+def _sweep_batch(B, seed=0):
+    """B left-canonical tensors in the fused sweep's layout, with TFIM h
+    across the phase diagram (float32, the accelerator dtype)."""
+    from qmps_tpu.parallel.sweep import tfim_matrix
+
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.normal(size=(B, 4, 2)) + 1j * rng.normal(size=(B, 4, 2)))
+    As = jnp.asarray(V.reshape(-1, 2, 2, 2).transpose(0, 2, 1, 3), jnp.complex64)
+    hs = jax.vmap(tfim_matrix)(jnp.linspace(0.1, 2.0, B)).real.astype(jnp.float32)
+    return As, hs
+
+
+def test_pallas_gradient_interpret():
+    """Fast-suite gradient parity of the Triton adjoint kernel (interpret
+    mode) with the XLA engine, both in float32."""
+    As, hs = _sweep_batch(5)
+    f = lambda eng: jax.grad(
+        lambda a: jnp.sum(energy_objective_fused(a, hs, 48, eng == "pallas", eng))
+    )(As)
+    gk, gx = f("pallas"), f("xla")
+    assert gk.dtype == As.dtype
+    np.testing.assert_allclose(np.asarray(gk), np.asarray(gx), atol=2e-5)
+
+
+def test_pallas_batch_not_multiple_of_block():
+    """A batch of BLOCK + 5 elements: two programs, the second mostly
+    padding; the padded lanes are dropped and the rest agree."""
+    from qmps_tpu.kernels.energy_fused import BLOCK
+
+    B = BLOCK + 5
+    As, hs = _sweep_batch(B, seed=1)
+    e_k = energy_objective_fused(As, hs, 48, True, "pallas")
+    e_x = energy_objective_fused(As, hs, 48, False, "xla")
+    assert e_k.shape == (B,)
+    np.testing.assert_allclose(np.asarray(e_k), np.asarray(e_x), atol=2e-5)
+
+
+def test_pallas_shared_h_matches_batched():
+    """A shared (4, 4) h (one 16-entry operand) gives the same energies as
+    the same h broadcast to (B, 4, 4) planes, and its cotangent is the
+    batch sum."""
+    As, hs = _sweep_batch(4, seed=2)
+    h0 = hs[1]
+    hb = jnp.broadcast_to(h0, (4, 4, 4))
+    e_s = energy_objective_fused(As, h0, 48, True, "pallas")
+    e_b = energy_objective_fused(As, hb, 48, True, "pallas")
+    np.testing.assert_allclose(np.asarray(e_s), np.asarray(e_b), atol=1e-6)
+    g_s = jax.grad(lambda h: jnp.sum(energy_objective_fused(As, h, 48, True, "pallas")))(h0)
+    g_x = jax.grad(lambda h: jnp.sum(energy_objective_fused(As, h, 48, False, "xla")))(h0)
+    assert g_s.shape == (4, 4)
+    np.testing.assert_allclose(np.asarray(g_s), np.asarray(g_x), atol=5e-5)
+
+
+def test_engine_choice_and_validation(monkeypatch):
+    """engine=None picks the kernel on a GPU and XLA elsewhere; unknown
+    engines and malformed shapes are refused."""
+    from qmps_tpu.kernels import energy_fused as ef
+
+    assert ef.default_engine() == "xla"  # the suite runs on the CPU
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert ef.default_engine() == "pallas"
+    assert ef.default_engine("xla") == "xla"
+    with pytest.raises(ValueError, match="engine"):
+        ef.default_engine("mosaic")
+    As, hs = _batch(3)
+    with pytest.raises(ValueError, match="hs"):
+        energy_objective_fused(As, hs[:2], 48, False, "xla")
+    with pytest.raises(ValueError, match="As"):
+        energy_objective_fused(As[0], hs, 48, False, "xla")
+
+
+def test_planes_layout_and_padding():
+    """The component-major plane layout: (B, ...) complex -> (ncomp, Bp)
+    float32 planes, element b in column b, zero padding after B."""
+    from qmps_tpu.kernels.energy_fused import _planes
+
+    x = (np.arange(12) + 1j * np.arange(12, 24)).reshape(3, 2, 2)
+    re, im = _planes(jnp.asarray(x), 4, 8)
+    assert re.shape == im.shape == (4, 8) and re.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(re)[:, :3], x.reshape(3, 4).real.T)
+    np.testing.assert_array_equal(np.asarray(im)[:, :3], x.reshape(3, 4).imag.T)
+    assert not np.any(np.asarray(re)[:, 3:]) and not np.any(np.asarray(im)[:, 3:])
+
+
+@pytest.mark.parametrize("h_shape", ["batched", "shared"])
+def test_kernel_lowers_for_cuda(h_shape):
+    """Both kernels lower through Pallas's Triton route for a CUDA target
+    at the sweep's width (4096), on a machine with no GPU: every primitive
+    in them has a Triton lowering.  (Compiling the Triton IR itself needs
+    the card: test_compiled_kernel_on_gpu.)"""
+    from jax import export
+
+    def f(a, h):
+        e, vjp = jax.vjp(lambda a: energy_objective_fused(a, h, 48, False, "pallas"), a)
+        return e, vjp(jnp.ones_like(e))[0]
+
+    hs = (4096, 4, 4) if h_shape == "batched" else (4, 4)
+    exp = export.export(
+        jax.jit(f), platforms=("cuda",),
+        disabled_checks=[export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")],
+    )(jax.ShapeDtypeStruct((4096, 2, 2, 2), jnp.complex64),
+      jax.ShapeDtypeStruct(hs, jnp.float32))
+    text = exp.mlir_module()
+    assert text.count("__gpu$xla.gpu.triton") == 2  # forward + adjoint
+    assert "_energy_fwd_kernel" in text and "_energy_bwd_kernel" in text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [4096, 65536])
+def test_compiled_kernel_on_gpu(gpu_only, B):
+    """The compiled Triton kernels on the card against the XLA twin
+    (repeated at full size by chip_smoke.py phase 2)."""
+    As, hs = _sweep_batch(B, seed=3)
+
+    def vg(engine):
+        def f(a):
+            e, vjp = jax.vjp(lambda x: energy_objective_fused(x, hs, 48, False, engine), a)
+            return e, vjp(jnp.ones_like(e))[0]
+        return jax.jit(f)(As)
+
+    (ek, gk), (ex, gx) = vg("pallas"), vg("xla")
+    assert float(jnp.max(jnp.abs(ek - ex))) < 1e-5
+    assert float(jnp.linalg.norm(gk - gx) / jnp.linalg.norm(gx)) < 1e-4

@@ -232,7 +232,7 @@ class TestMultiSiteCanonical:
 
 @pytest.mark.slow
 def test_rank_deficient_f32_stays_finite():
-    """Rank-deficient states in float32 (the TPU x64-off mode): the
+    """Rank-deficient states in float32 (the x64-off mode): the
     canonical forms, mixed gauge, entropy, and truncation must all stay
     finite — a fixed 1e-14 cholesky jitter underflowed below complex64
     resolution and every one of these silently NaN'd."""

@@ -112,8 +112,9 @@ def test_matvec_gradients_match_dense(key):
 
 
 def test_matvec_grad_under_scan(key):
-    """The failure mode that killed the old gmres adjoint on TPU: a
-    value_and_grad consumer wrapped in lax.scan.  Must compile and run."""
+    """The shape that ruled out jax.scipy's while_loop gmres as the
+    adjoint: a value_and_grad consumer wrapped in lax.scan.  Must compile
+    and run."""
     from qmps_tpu.mps.imps import iMPS
 
     A0 = iMPS.random(key, 2, 4)[0]

@@ -1,5 +1,5 @@
 """The reference's circuit-identity battery (qmps/new_time_evolve.py:53-184,
-duplicated at scripts/loschmidt.py:71-202), rebuilt on the TPU-native stack.
+duplicated at scripts/loschmidt.py:71-202), rebuilt on the JAX stack.
 
 These identities tie *everything* together: Bell-pair readout of embedded
 environments, mixed-transfer fixed points, state-unitary embeddings and the

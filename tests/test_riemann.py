@@ -102,8 +102,7 @@ def test_warm_energy_gradient_matches_cold(key):
 def test_unroll_gradient_matches_implicit(key):
     """bwd="unroll" (plain AD through the warm power iterations — the
     vmapped-sweep fast path; the batched LU implicit adjoint is
-    pivot-sequential under vmap, measured 49 ms of a 59 ms deep-brickwork
-    step at D=8 B=1024 on v5e) agrees with the implicit c-gauge adjoint
+    pivot-sequential under vmap) agrees with the implicit c-gauge adjoint
     at enough iterations: it is the exact gradient of the iters-refined
     energy, which converges to the implicit gradient as the power
     residual vanishes (f64)."""

@@ -57,8 +57,9 @@ def test_multi_start_ground_state():
 
 
 def test_hamiltonian_matrices_are_host_numpy():
-    """Constants captured into jits must be host arrays (the TPU backend
-    cannot fetch complex device arrays at trace time)."""
+    """Constants captured into jits must be host arrays (they embed into
+    the program as literals; a device array would be fetched at trace
+    time)."""
     import numpy as np
 
     from qmps_tpu.ham import tfim

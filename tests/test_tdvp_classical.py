@@ -220,7 +220,7 @@ class TestVUMPS:
     def test_vumps_float32_converges(self):
         """Regression: the Lanczos breakdown threshold must be dtype-aware
         — a fixed 1e-12 admits float32 noise as Krylov directions and
-        VUMPS diverges from random starts in complex64 (the TPU mode)."""
+        VUMPS diverges from random starts in complex64 (the 32-bit mode)."""
         from qmps_tpu.mps.imps import random_tensor
         from qmps_tpu.mps.tdvp import vumps_ground_state
 
